@@ -1,5 +1,5 @@
 # Convenience targets. The Python package needs no build step; the native
-# tier compiles itself on first use (see ipmzoo_tpu/native/native.py).
+# tier compiles itself on first use (see ipmzoo/native/native.py).
 
 PY ?= python
 
@@ -12,14 +12,14 @@ bench:
 	$(PY) bench.py
 
 native:
-	$(PY) -c "from ipmzoo_tpu import native; assert native.available(); print('native tier OK')"
+	$(PY) -c "from ipmzoo import native; assert native.available(); print('native tier OK')"
 
 demos:
-	JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 $(PY) -m ipmzoo_tpu.frontend.cli
+	JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 $(PY) -m ipmzoo.frontend.cli
 
 web:
-	JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 $(PY) -m ipmzoo_tpu.frontend.cli --web docs
+	JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 $(PY) -m ipmzoo.frontend.cli --web docs
 
 clean:
-	rm -f ipmzoo_tpu/native/_linear_solvers.so
+	rm -f ipmzoo/native/_linear_solvers.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

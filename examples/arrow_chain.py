@@ -17,11 +17,13 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.models import ArrowIPM, ArrowQPData, CompiledIPM
-from ipmzoo_tpu.models.families import arrow_chain
+from ipmzoo.models import ArrowIPM, ArrowQPData, CompiledIPM
+from ipmzoo.models.families import arrow_chain
+from ipmzoo.utils.cache import enable_compile_cache
 
 
 def main(n=512, bandwidth=8, tip=4):
+    enable_compile_cache()
     fam = arrow_chain(n=n, bandwidth=bandwidth, tip=tip, seed=0,
                       dtype=jnp.float32)
 

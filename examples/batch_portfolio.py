@@ -1,4 +1,4 @@
-"""Batched Markowitz portfolio optimisation on TPU.
+"""Batched Markowitz portfolio optimisation.
 
 Solves a batch of independent portfolio QPs (different return/covariance
 scenarios) in one compiled program, then prints summary statistics.
@@ -15,15 +15,17 @@ import time
 import jax
 import jax.numpy as jnp
 
-from ipmzoo_tpu.models import CompiledIPM
-from ipmzoo_tpu.models.families import portfolio
-from ipmzoo_tpu.utils import Timer
+from ipmzoo.models import CompiledIPM
+from ipmzoo.models.families import portfolio
+from ipmzoo.utils import Timer
+from ipmzoo.utils.cache import enable_compile_cache
 
 
 def main():
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     n_assets = int(sys.argv[2]) if len(sys.argv) > 2 else 32
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    enable_compile_cache()
+    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     tol = 1e-5 if dtype == jnp.float32 else 1e-8
 
     t = Timer()

@@ -17,11 +17,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.parallel.mesh import make_mesh
-from ipmzoo_tpu.parallel.schur import BlockQPData, SchurIPM
+from ipmzoo.parallel.mesh import make_mesh
+from ipmzoo.parallel.schur import BlockQPData, SchurIPM
+from ipmzoo.utils.cache import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     blocks = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     m_c = 4

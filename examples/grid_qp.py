@@ -23,19 +23,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.models import CompiledIPM
-from ipmzoo_tpu.models.families import grid_qp
+from ipmzoo.models import CompiledIPM
+from ipmzoo.models.families import grid_qp
+from ipmzoo.utils.cache import enable_compile_cache
 
 
 def main(g=24, leaf=32):
     n = g * g
-    # f64 needs x64 mode (CPU); the TPU backend is f32-only — pick the
-    # dtype/tolerance pair the backend supports (f32 floor is 1e-6,
-    # tests/test_precision_floor.py)
-    if jax.default_backend() == "tpu" or not jax.config.jax_enable_x64:
-        dtype, tol = jnp.float32, 1e-5
-    else:
+    enable_compile_cache()
+    # f64 needs x64 mode; without it run f32 at a tolerance above its
+    # floor (1e-6, tests/test_precision_floor.py)
+    if jax.config.jax_enable_x64:
         dtype, tol = jnp.float64, 1e-8
+    else:
+        dtype, tol = jnp.float32, 1e-5
     fam = grid_qp(side=g, seed=0, dtype=dtype)
     data = fam.data
 

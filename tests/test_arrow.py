@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import Bounds, InequalityHandling, Settings
-from ipmzoo_tpu.models import ArrowIPM, ArrowQPData, CompiledIPM, QPData
-from ipmzoo_tpu.ops.banded import (arrow_factor, arrow_solve,
+from ipmzoo.formulations import Bounds, InequalityHandling, Settings
+from ipmzoo.models import ArrowIPM, ArrowQPData, CompiledIPM, QPData
+from ipmzoo.ops.banded import (arrow_factor, arrow_solve,
                                    band_to_blocks, bt_factor, bt_solve,
                                    detect_arrow)
 
@@ -179,7 +179,7 @@ class TestArrowIPM:
 class TestCyclicReduction:
     @pytest.mark.parametrize("N,b", [(4, 8), (5, 8), (32, 16), (1, 8)])
     def test_cr_matches_dense(self, N, b):
-        from ipmzoo_tpu.ops.banded import cr_factor, cr_solve
+        from ipmzoo.ops.banded import cr_factor, cr_solve
         n = N * b
         Q = make_arrow_spd(n, b, 0, seed=N * 10 + b)
         D, E, U, C = band_to_blocks(jnp.asarray(Q), b, 0)
@@ -202,41 +202,6 @@ class TestCyclicReduction:
             outs.append(np.concatenate([np.asarray(xb), np.asarray(xt)]))
         np.testing.assert_allclose(outs[0], outs[1], rtol=1e-11,
                                    atol=1e-11)
-
-    def test_arrow_pl_matches_cr(self):
-        """The fused whole-reduction Pallas kernel path (method='pl',
-        interpret mode on CPU) is a drop-in for 'cr' in the full arrow
-        factor+solve."""
-        n, b, t = 93, 8, 5
-        Q = make_arrow_spd(n, b, t, seed=43)
-        D, E, U, C = band_to_blocks(jnp.asarray(Q), b, t)
-        r = np.random.default_rng(3).normal(size=n)
-        outs = []
-        for method in ("cr", "pl"):
-            f = arrow_factor(D, E, U, C, method=method)
-            xb, xt = arrow_solve(f, jnp.asarray(r[:n - t]),
-                                 jnp.asarray(r[n - t:]))
-            outs.append(np.concatenate([np.asarray(xb), np.asarray(xt)]))
-        np.testing.assert_allclose(outs[0], outs[1], rtol=1e-10,
-                                   atol=1e-10)
-
-
-def test_arrow_ipm_pl_end_to_end():
-    """ArrowIPM with the fused Pallas reduction solves a small chain QP
-    to the same answer as the XLA cr path."""
-    n, b, t = 64, 4, 2
-    Q = make_arrow_spd(n, b, t, seed=9)
-    c = np.random.default_rng(10).normal(size=n)
-    l, u = np.full(n, -1.0), np.full(n, 1.0)
-    res = []
-    for method in ("cr", "pl"):
-        data, st, blk = ArrowQPData.from_dense(Q, c, l, u, block=b)
-        solver = ArrowIPM.for_data(data, structure=st, tol=1e-8,
-                                   method=method)
-        r = solver.solve(data)
-        assert bool(r.converged), method
-        res.append(np.asarray(r.x))
-    np.testing.assert_allclose(res[0], res[1], atol=1e-7)
 
 
 def test_arrow_warm_start_reduces_iterations():

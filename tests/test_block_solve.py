@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.ops.block_solve import block2_factor, block2_matvec, \
+from ipmzoo.formulations import Settings
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.ops.block_solve import block2_factor, block2_matvec, \
     block2_solve
 
 
@@ -72,12 +72,12 @@ class TestSolverBlockMode:
                                    atol=1e-12)
 
     def test_block_mode_rejects_non_2x2(self):
-        from ipmzoo_tpu.formulations import InequalityHandling
+        from ipmzoo.formulations import InequalityHandling
         with pytest.raises(ValueError):
             # Slacks handling yields a 3-block augmented system? For the
             # demo formulation it reduces to 2x2 with x leading; use a
             # bounds-free equality-free formulation (1x1) instead.
-            from ipmzoo_tpu.formulations import Bounds
+            from ipmzoo.formulations import Bounds
             CompiledIPM(Settings(inequalities=Bounds.NONE,
                                  variable_bounds=Bounds.NONE),
                         n=4, kernel="block")
@@ -99,12 +99,12 @@ class TestSolverBlockMode:
 
 class TestExplicitInverse:
     """block2_factor_inv binds explicit H^{-1}/S^{-1} so direction
-    solves are matvecs (the TPU 'block' default); must match the
+    solves are matvecs (the opt-in block2_factor_inv); must match the
     triangular-solve staging to roundoff."""
 
     def test_inv_matches_triangular(self):
         import numpy as np
-        from ipmzoo_tpu.ops.block_solve import (block2_factor,
+        from ipmzoo.ops.block_solve import (block2_factor,
                                                 block2_factor_inv,
                                                 block2_solve,
                                                 block2_solve_inv)
@@ -126,7 +126,7 @@ class TestExplicitInverse:
 
     def test_empty_dual_block(self):
         import numpy as np
-        from ipmzoo_tpu.ops.block_solve import (block2_factor_inv,
+        from ipmzoo.ops.block_solve import (block2_factor_inv,
                                                 block2_solve_inv)
         rng = np.random.default_rng(1)
         n = 8

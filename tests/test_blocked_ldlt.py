@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.ops.blocked_ldlt import ldlt_blocked
-from ipmzoo_tpu.ops.ldlt import ldlt, solve_ldlt
+from ipmzoo.ops.blocked_ldlt import ldlt_blocked
+from ipmzoo.ops.ldlt import ldlt, solve_ldlt
 
 
 def _quasi_definite(n, m, seed=0):
@@ -78,8 +78,8 @@ class TestBlockedLDLT:
         """A >2x2 augmented structure at n past the panel width: the auto
         LDL^T path (now blocked for single instances) still solves to
         reference tolerances."""
-        from ipmzoo_tpu.formulations import (EqualityHandling, Settings)
-        from ipmzoo_tpu.models import CompiledIPM, QPData
+        from ipmzoo.formulations import (EqualityHandling, Settings)
+        from ipmzoo.models import CompiledIPM, QPData
 
         rng = np.random.default_rng(7)
         n, m_eq = 150, 20
@@ -93,7 +93,7 @@ class TestBlockedLDLT:
             l_x=np.full(n, -2.0), u_x=np.full(n, 2.0))
         settings = Settings(
             inequalities=__import__(
-                "ipmzoo_tpu.formulations", fromlist=["Bounds"]).Bounds.NONE,
+                "ipmzoo.formulations", fromlist=["Bounds"]).Bounds.NONE,
             equalities=True,
             equality_handling=EqualityHandling.REGULARIZATION)
         solver = CompiledIPM(settings, n=n, m_eq=m_eq, kernel="ldlt")

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.ops.blockg import (blockg_factor, blockg_matvec,
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.ops.blockg import (blockg_factor, blockg_matvec,
                                    blockg_solve)
 
 
@@ -103,7 +103,7 @@ class TestBlockG:
 
     def test_matches_block2(self):
         """G=2 with signs (+,-) is exactly the Cholesky+Schur path."""
-        from ipmzoo_tpu.ops.block_solve import block2_factor, block2_solve
+        from ipmzoo.ops.block_solve import block2_factor, block2_solve
         blocks, dense = _qd_blocks((12, 7), (1.0, -1.0), seed=4)
         rng = np.random.default_rng(5)
         b = rng.normal(size=19)

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.models import codegen as cg
-from ipmzoo_tpu.symbolic import (diagonal_matrix, invert, matrix,
+from ipmzoo.models import codegen as cg
+from ipmzoo.symbolic import (diagonal_matrix, invert, matrix,
                                  named_scalar, named_vector, negate, number,
                                  product, sum_expr, symmetric_matrix,
                                  transpose, variable)

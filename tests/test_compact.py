@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.formulations import Settings
+from ipmzoo.models import CompiledIPM, QPData
 
 
 def _random_batch(batch, n, m, dtype, seed=0):
@@ -163,9 +163,9 @@ class TestMehrotraCycling:
 
 
 class TestEscalation:
-    """The XLA compact engine's final two-float escalation stage (same
-    design as the fused engine's): f32-representation-floor stragglers
-    are finished warm in double-single pairs."""
+    """The XLA compact engine's final two-float escalation stage:
+    f32-representation-floor stragglers are finished warm in
+    double-single pairs."""
 
     def test_escalation_rescues_starved_batch(self):
         # starve every earlier stage (budget 3, no mop-up headroom) so

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.formulations import Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.models import codegen_df as cgdf
+from ipmzoo.formulations import Settings
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.models import codegen_df as cgdf
 
 
 def _problem(n=16, mi=6, seed=0, dtype=None):

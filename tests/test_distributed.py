@@ -2,7 +2,7 @@
 
 Spawns two subprocesses that initialise jax.distributed against a local
 coordinator, build a cross-process mesh, and psum a sharded array —
-the same code path a TPU pod-slice launch uses (with ICI/DCN instead of
+the same code path a multi-host launch uses (with ICI/DCN instead of
 Gloo)."""
 
 import os
@@ -18,7 +18,7 @@ _WORKER = textwrap.dedent("""
     port = sys.argv[2]
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-    from ipmzoo_tpu.parallel.distributed import (initialize,
+    from ipmzoo.parallel.distributed import (initialize,
                                                  local_batch_slice)
     initialize(coordinator_address="127.0.0.1:" + port, num_processes=2,
                process_id=proc_id)

@@ -7,7 +7,7 @@ factor extraction, intern identity), re-expressed against our API.
 
 import pytest
 
-from ipmzoo_tpu.symbolic import (ZERO, UNITY, diagonal_matrix, invert,
+from ipmzoo.symbolic import (ZERO, UNITY, diagonal_matrix, invert,
                                  intern_cache_size, log, matrix, named_scalar,
                                  named_vector, negate, number, product,
                                  sum_expr, symmetric_matrix, transpose,

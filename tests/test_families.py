@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.models import CompiledIPM
-from ipmzoo_tpu.models.families import (FAMILIES, mpc, portfolio,
+from ipmzoo.models import CompiledIPM
+from ipmzoo.models.families import (FAMILIES, mpc, portfolio,
                                         projection, svm_dual)
 
 
@@ -80,7 +80,7 @@ def test_batched_family_solve():
 def test_elastic_net_matches_sklearn_like_oracle():
     """The split-QP solution reconstructs the elastic-net coefficients:
     verify the KKT subgradient conditions of the original problem."""
-    from ipmzoo_tpu.models.families import elastic_net
+    from ipmzoo.models.families import elastic_net
     fam = elastic_net(n_features=8, n_samples=32, lam1=0.2, lam2=0.1,
                       seed=6, dtype=jnp.float64)
     solver = CompiledIPM(fam.settings, n=fam.n, dtype=jnp.float64)
@@ -104,7 +104,7 @@ def test_elastic_net_matches_sklearn_like_oracle():
 
 
 def test_equality_qp_uses_regldlt_and_satisfies_constraints():
-    from ipmzoo_tpu.models.families import equality_qp
+    from ipmzoo.models.families import equality_qp
     fam = equality_qp(n=12, m_eq=3, seed=7, dtype=jnp.float64)
     solver = CompiledIPM(fam.settings, n=fam.n, m_eq=fam.m_eq,
                          dtype=jnp.float64)
@@ -117,8 +117,8 @@ def test_equality_qp_uses_regldlt_and_satisfies_constraints():
 
 
 def test_arrow_chain_detector_and_structured_solver():
-    from ipmzoo_tpu.models import ArrowIPM, ArrowQPData
-    from ipmzoo_tpu.models.families import arrow_chain
+    from ipmzoo.models import ArrowIPM, ArrowQPData
+    from ipmzoo.models.families import arrow_chain
     fam = arrow_chain(n=60, bandwidth=4, tip=4, seed=8,
                       dtype=jnp.float64)
     sdata, st, blk = ArrowQPData.from_dense(

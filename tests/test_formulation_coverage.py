@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.models import CompiledIPM, QPData
 
 # min 1/2 x^T Q x + c^T x s.t. 0.5 <= x1 + 2 x2 <= 3, sum(x) = 2,
 # -4 <= x <= 4; verified optimum via scipy SLSQP below.

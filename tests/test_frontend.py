@@ -7,9 +7,9 @@ import sys
 
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, InequalityHandling,
+from ipmzoo.formulations import (Bounds, InequalityHandling,
                                      ProblemStage, Settings)
-from ipmzoo_tpu.frontend.latex import (render_first_order_conditions,
+from ipmzoo.frontend.latex import (render_first_order_conditions,
                                        render_lagrangian,
                                        render_newton_systems, render_problem)
 
@@ -66,7 +66,7 @@ class TestLatexGolden:
 
     @pytest.mark.parametrize("key", sorted(_latex_cases()))
     def test_latex_parity(self, key):
-        from ipmzoo_tpu.formulations import EqualityHandling
+        from ipmzoo.formulations import EqualityHandling
         gold = _latex_cases()[key]
         ib, vb, eq, eh, ih = key.split("|")
         st = Settings(inequalities=Bounds(ib), variable_bounds=Bounds(vb),
@@ -90,7 +90,7 @@ class TestLatexGolden:
 
 class TestWeb:
     def test_generate_site(self, tmp_path):
-        from ipmzoo_tpu.frontend.web import generate_site
+        from ipmzoo.frontend.web import generate_site
         out = str(tmp_path / "site")
         generate_site(out)
         assert os.path.exists(os.path.join(out, "index.html"))
@@ -105,7 +105,7 @@ class TestWeb:
     def test_dim_zeros_toggle_wired(self, tmp_path):
         # reference behaviour: docs/index.html "Dim zeros" checkbox +
         # ipm-derivation.js:24-27 regex wrapping standalone 0s.
-        from ipmzoo_tpu.frontend.web import _PAGE
+        from ipmzoo.frontend.web import _PAGE
         assert 'id="dim_zeros" checked' in _PAGE
         assert "function dimZeros" in _PAGE
         assert r"{\\color{lightgray}0}" in _PAGE
@@ -120,7 +120,7 @@ class TestCLI:
                    PYTHONPATH=os.path.dirname(os.path.dirname(
                        os.path.abspath(__file__))))
         return subprocess.run(
-            [sys.executable, "-m", "ipmzoo_tpu.frontend.cli", *args],
+            [sys.executable, "-m", "ipmzoo.frontend.cli", *args],
             capture_output=True, text=True, env=env, timeout=500)
 
     def test_symbolic_demo(self):

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.models import CompiledIPM, QPData
 
 
 def demo_qp(dtype=jnp.float64):
@@ -177,7 +177,7 @@ class TestIndefiniteSystems:
     """Equalities with EqualityHandling.NONE keep a zero diagonal block:
     the augmented system is genuinely indefinite.  The reference hard-fails
     there (Optimizer.cpp:75); we route to signed-regularised LDL^T +
-    refinement (batched-TPU-friendly), with partial-pivoting LU kept as an
+    refinement (batched-device-friendly), with partial-pivoting LU kept as an
     explicit fallback."""
 
     SETTINGS = Settings(

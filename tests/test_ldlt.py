@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.ops import (batched_ldlt, batched_solve_ldlt, cholesky_solve,
+from ipmzoo.ops import (batched_ldlt, batched_solve_ldlt, cholesky_solve,
                             ldlt, ldlt_solve, solve_ldlt)
 
 

@@ -10,8 +10,8 @@ LDL^T cannot — the property the two-float IPM mode rides to 1e-8.
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.ops.ldlt import ldlt, ldlt_solve
-from ipmzoo_tpu.ops.ldlt_df import (ldlt_df, ldlt_solve_df, solve_ldlt_df,
+from ipmzoo.ops.ldlt import ldlt, ldlt_solve
+from ipmzoo.ops.ldlt_df import (ldlt_df, ldlt_solve_df, solve_ldlt_df,
                                     split_f64)
 
 

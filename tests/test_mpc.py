@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.models.mpc import (MPCData, RiccatiIPM, condense,
+from ipmzoo.models.mpc import (MPCData, RiccatiIPM, condense,
                                    random_mpc)
-from ipmzoo_tpu.ops.riccati import (riccati_factor, riccati_kkt_dense,
+from ipmzoo.ops.riccati import (riccati_factor, riccati_kkt_dense,
                                     riccati_solve)
 
 
@@ -116,8 +116,8 @@ class TestRiccatiIPM:
     def test_matches_condensed_dense_solver(self):
         """Same QP through the structured path and through state
         elimination + the generic dense IPM must agree."""
-        from ipmzoo_tpu.formulations import Settings
-        from ipmzoo_tpu.models import CompiledIPM
+        from ipmzoo.formulations import Settings
+        from ipmzoo.models import CompiledIPM
 
         T, ns, nu = 5, 3, 2
         data = random_mpc(horizon=T, n_states=ns, n_controls=nu, seed=4,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ipmzoo_tpu import native
+from ipmzoo import native
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -53,7 +53,7 @@ class TestLDLT:
         """The native tier and the jnp device kernel agree (up to
         floating-point summation order)."""
         import jax.numpy as jnp
-        from ipmzoo_tpu.ops import ldlt as jldlt
+        from ipmzoo.ops import ldlt as jldlt
         A = quasidefinite(8, 5, seed=42)
         Ln, Dn = native.ldlt_factor(A)
         Lj, Dj = jldlt(jnp.asarray(A))
@@ -125,7 +125,7 @@ class TestRegLDLTAgainstBK:
     @staticmethod
     def _regldlt_solve(K, b, signs, sweeps=3):
         import jax.numpy as jnp
-        from ipmzoo_tpu.ops.pallas_ldlt import ldlt_auto, solve_ldlt_auto
+        from ipmzoo.ops.pallas_ldlt import ldlt_auto, solve_ldlt_auto
         Kj = jnp.asarray(K)
         eps = float(np.finfo(K.dtype).eps)
         scale = max(1.0, float(np.max(np.abs(np.diag(K)))))
@@ -150,7 +150,7 @@ class TestRegLDLTAgainstBK:
     def test_batched_matches_bunch_kaufman(self):
         import jax
         import jax.numpy as jnp
-        from ipmzoo_tpu.ops.pallas_ldlt import ldlt_auto, solve_ldlt_auto
+        from ipmzoo.ops.pallas_ldlt import ldlt_auto, solve_ldlt_auto
         n, m, batch = 12, 5, 8
         Ks = np.stack([self._kkt(n, m, seed=100 + i) for i in range(batch)])
         bs = np.random.default_rng(0).normal(size=(batch, n + m))

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.ops.ldlt import ldlt_solve
-from ipmzoo_tpu.ops.ndiss import nd_factor, nd_plan, nd_solve, \
+from ipmzoo.ops.ldlt import ldlt_solve
+from ipmzoo.ops.ndiss import nd_factor, nd_plan, nd_solve, \
     nd_solve_matrix
 
 
@@ -155,7 +155,7 @@ class TestIPMConsumer:
     plan derived lazily from the data's sparsity on the first solve."""
 
     def _sparse_qp(self, n=96, m=12, seed=13):
-        from ipmzoo_tpu.models import QPData
+        from ipmzoo.models import QPData
         rng = np.random.default_rng(seed)
         Q = banded_qd(n, 2, seed=seed)
         Q = Q @ Q.T / 8 + np.eye(n)       # SPD, banded (wider)
@@ -173,8 +173,8 @@ class TestIPMConsumer:
             l_x=jnp.full((n,), -2.0), u_x=jnp.full((n,), 2.0))
 
     def test_nd_matches_dense_kernel(self):
-        from ipmzoo_tpu.formulations import Settings
-        from ipmzoo_tpu.models import CompiledIPM
+        from ipmzoo.formulations import Settings
+        from ipmzoo.models import CompiledIPM
         n, m = 96, 12
         data = self._sparse_qp(n, m)
         nd = CompiledIPM(Settings(), n=n, m_ineq=m, kernel="nd",
@@ -191,8 +191,8 @@ class TestIPMConsumer:
 
     def test_nd_solve_batch(self):
         # batched QPs share the structure (plan derived from instance 0)
-        from ipmzoo_tpu.formulations import Settings
-        from ipmzoo_tpu.models import CompiledIPM
+        from ipmzoo.formulations import Settings
+        from ipmzoo.models import CompiledIPM
         n, m, B = 64, 8, 3
         insts = [self._sparse_qp(n, m, seed=20 + i) for i in range(B)]
         base = insts[0]
@@ -213,8 +213,8 @@ class TestIPMConsumer:
                                    np.asarray(r_ref.x), atol=1e-7)
 
     def test_explicit_pattern(self):
-        from ipmzoo_tpu.formulations import Settings
-        from ipmzoo_tpu.models import CompiledIPM
+        from ipmzoo.formulations import Settings
+        from ipmzoo.models import CompiledIPM
         n, m = 64, 8
         data = self._sparse_qp(n, m, seed=14)
         probe = CompiledIPM(Settings(), n=n, m_ineq=m, kernel="nd")
@@ -253,9 +253,9 @@ class TestJit:
 
 
 class TestPallasMethod:
-    """The TPU hot path runs each level's batched factor/solves as the
-    VMEM-resident Pallas kernels (method='pl'; interpreter mode on CPU).
-    Pin parity with the portable jnp path on a grid KKT."""
+    """On the GPU each level's batched factor/solves can run as the
+    Pallas kernels (method='pl'); here they run in the Pallas
+    interpreter.  Pin parity with the plain jnp path on a grid KKT."""
 
     def test_pl_equals_jnp(self):
         A = grid_spd(8, seed=13)
@@ -264,9 +264,9 @@ class TestPallasMethod:
         K = jnp.asarray(A, jnp.float64)
         b = jnp.asarray(np.random.default_rng(3).normal(size=n))
         f_j = nd_factor(K, plan, method="jnp")
-        f_p = nd_factor(K, plan, method="pl")
+        f_p = nd_factor(K, plan, method="pl", interpret=True)
         x_j = nd_solve(plan, f_j, b, method="jnp")
-        x_p = nd_solve(plan, f_p, b, method="pl")
+        x_p = nd_solve(plan, f_p, b, method="pl", interpret=True)
         np.testing.assert_allclose(np.asarray(x_p), np.asarray(x_j),
                                    atol=1e-10, rtol=1e-10)
         x_ref = ldlt_solve(K, b)
@@ -276,12 +276,12 @@ class TestPallasMethod:
 
 class TestAutoFallback:
     """kernel='nd' must never silently run a plan predicted to lose to
-    the dense path (r3: 2060x flop ratio still lost 4x at n=4096 to
-    per-level overhead before the Pallas levels)."""
+    the dense path (a large flop ratio can still lose to per-level
+    overhead)."""
 
     def test_small_grid_falls_back_to_dense(self):
-        from ipmzoo_tpu.models import CompiledIPM
-        from ipmzoo_tpu.models.families import grid_qp
+        from ipmzoo.models import CompiledIPM
+        from ipmzoo.models.families import grid_qp
         fam = grid_qp(side=6, seed=0, dtype=jnp.float64)
         s = CompiledIPM(fam.settings, n=36, dtype=jnp.float64, tol=1e-7,
                         kernel="nd", nd_leaf=8)
@@ -290,8 +290,8 @@ class TestAutoFallback:
         assert bool(r.converged)
 
     def test_fallback_disabled_keeps_nd(self):
-        from ipmzoo_tpu.models import CompiledIPM
-        from ipmzoo_tpu.models.families import grid_qp
+        from ipmzoo.models import CompiledIPM
+        from ipmzoo.models.families import grid_qp
         fam = grid_qp(side=6, seed=0, dtype=jnp.float64)
         s = CompiledIPM(fam.settings, n=36, dtype=jnp.float64, tol=1e-7,
                         kernel="nd", nd_leaf=8, nd_fallback=False)
@@ -300,8 +300,8 @@ class TestAutoFallback:
         assert bool(r.converged)
 
     def test_fallback_matches_nd_solution(self):
-        from ipmzoo_tpu.models import CompiledIPM
-        from ipmzoo_tpu.models.families import grid_qp
+        from ipmzoo.models import CompiledIPM
+        from ipmzoo.models.families import grid_qp
         fam = grid_qp(side=5, seed=1, dtype=jnp.float64)
         kw = dict(n=25, dtype=jnp.float64, tol=1e-8, kernel="nd")
         r_fb = CompiledIPM(fam.settings, **kw).solve(fam.data)

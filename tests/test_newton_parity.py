@@ -13,7 +13,7 @@ import os
 
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings,
                                      augmented_system, newton_system,
                                      normal_equations, shorthand_rhs)

@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.models import CompiledIPM, QPData
 
 Q = np.array([[2.0, 0.5], [0.5, 1.0]])
 C = np.array([-1.0, -2.0])

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ipmzoo_tpu.formulations import Bounds, InequalityHandling, Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.parallel.mesh import batch_sharding, make_mesh, replicated
+from ipmzoo.formulations import Bounds, InequalityHandling, Settings
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.parallel.mesh import batch_sharding, make_mesh, replicated
 
 
 def random_batch(batch, n, seed=0):
@@ -61,7 +61,7 @@ def test_dp_scaling_report_cpu_mesh(capsys):
     the report carries a well-formed efficiency figure.  On the virtual
     CPU mesh the efficiency *value* is not meaningful (8 'devices' share
     one CPU) — the assert is on mechanics, not the threshold."""
-    from ipmzoo_tpu.parallel.scaling import dp_scaling_report
+    from ipmzoo.parallel.scaling import dp_scaling_report
 
     n, batch = 6, 16
     data = random_batch(batch, n, seed=2)

@@ -8,7 +8,7 @@ floor on this class) and the ITERATE REPRESENTATION (an f32-rounded
 point cannot have residual below ~eps_f32 * ||Qx||).  two_float=True
 removes BOTH: iterates are (hi, lo) pairs and the augmented system is
 assembled and factored in double-single (ops/ldlt_df.py), giving an
-effective unit roundoff of ~2^-48 from pure f32 TPU arithmetic.
+effective unit roundoff of ~2^-48 from pure f32 arithmetic.
 
 | dtype | options        | achievable tol | not achievable |
 |-------|----------------|----------------|----------------|
@@ -19,7 +19,7 @@ effective unit roundoff of ~2^-48 from pure f32 TPU arithmetic.
 |       |                |                |  this class)   |
 
 The 1e-8 two_float row closes the last BASELINE.md gap ("duality-gap
-parity <= 1e-8, 1 TPU chip"; reference tolerance anchor
+parity <= 1e-8"; reference tolerance anchor
 /root/reference/src/NumericalOptimization/Optimizer.cpp:124,133).
 
 If the f32 rows improve after a solver change, UPDATE this table —
@@ -32,8 +32,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.formulations import Settings
+from ipmzoo.models import CompiledIPM, QPData
 
 B, N, M = 48, 16, 8
 
@@ -93,8 +93,8 @@ class TestTwoFloatFloor:
     Run EAGERLY (un-jitted _step_impl), like the df_residuals tests:
     the pair pipeline's step graph is ~13k ops and XLA's CPU backend
     compiles it pathologically slowly, while eager execution of the
-    same ops takes seconds.  The TPU bench line (BENCH_MODE=tf) runs
-    the jitted path on hardware."""
+    same ops takes seconds.  The bench line (BENCH_MODE=tf) runs the
+    jitted path on the GPU."""
 
     def _solve_eager(self, data_row, tol, max_iter=30):
         s = CompiledIPM(Settings(), n=N, m_ineq=M, dtype=jnp.float32,
@@ -132,17 +132,3 @@ class TestTwoFloatFloor:
         st, _ = self._solve_eager(row, 1e-10, max_iter=35)
         assert float(st.residual) < 1e-10
         assert float(st.gap) < 1e-10
-
-
-def test_fused_f32_reaches_1e6_no_rollbacks(qp_batch):
-    """The fused engine in f32 converges the whole batch at tol 1e-6
-    (the f32 floor) with the dtype-tied mu floor active — interpret
-    mode on CPU runs the identical kernel arithmetic."""
-    from ipmzoo_tpu.models.fused import FusedBatchedIPM
-    d = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32),
-                               qp_batch)
-    fused = FusedBatchedIPM(Settings(), n=N, m_ineq=M,
-                            dtype=jnp.float32, tol=1e-6, bt=16,
-                            max_iter=40)
-    out = fused.solve_fused_refined(d, tail_cap=16)
-    assert float(jnp.mean(out["converged"].astype(jnp.float64))) == 1.0

@@ -1,19 +1,19 @@
 """The library pins jax_default_matmul_precision to 'highest'.
 
-On TPU, XLA's DEFAULT f32 matmul precision truncates inputs to
-bfloat16 on the MXU (~2e-3 relative error, measured on hardware —
-utils/precision.py docstring).  Every XLA-path engine assembles KKT
+On the GPU, XLA's DEFAULT f32 matmul precision may run the product in
+TF32 (about three decimal digits — utils/precision.py docstring).
+Every XLA-path engine assembles KKT
 systems and residuals out of matmuls, so the whole convergence story
 (tests/test_precision_floor.py's 1e-6 f32 floor, the two-float 1e-8
 line) silently breaks on hardware without this pin.  The reference's
 CPU doubles are always exact (/root/reference/src/NumericalOptimization
-/Evaluation.cpp); this is that guarantee, ported to TPU.
+/Evaluation.cpp); this is that guarantee, ported to the device.
 """
 
 import jax
 
-import ipmzoo_tpu.ops  # noqa: F401  (import applies the policy)
-from ipmzoo_tpu.utils import precision
+import ipmzoo.ops  # noqa: F401  (import applies the policy)
+from ipmzoo.utils import precision
 
 
 def test_import_pins_highest_precision():

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.parallel.mesh import make_mesh
-from ipmzoo_tpu.parallel.schur import BlockQPData, SchurIPM
+from ipmzoo.parallel.mesh import make_mesh
+from ipmzoo.parallel.schur import BlockQPData, SchurIPM
 
 
 def make_coupled(blocks, n, m_c, seed=0, dtype=jnp.float64):
@@ -109,8 +109,8 @@ class TestSymbolicCrossCheck:
     QP through CompiledIPM must reach the same optimum."""
 
     def test_matches_compiled_ipm_on_monolithic_form(self):
-        from ipmzoo_tpu.formulations import (EqualityHandling, Settings)
-        from ipmzoo_tpu.models import CompiledIPM, QPData
+        from ipmzoo.formulations import (EqualityHandling, Settings)
+        from ipmzoo.models import CompiledIPM, QPData
 
         B, n, m_c = 4, 6, 3
         data = make_coupled(B, n, m_c, seed=5)
@@ -182,9 +182,9 @@ class TestIllConditioned:
 
 
 class TestPallasBlockKernel:
-    """The TPU hot path factors/solves the local H_b blocks with the
-    batched Pallas kernels (block_kernel='pallas'); on CPU they run in
-    interpreter mode, so this pins pallas == jnp on the same problem
+    """On the GPU the local H_b blocks are factored/solved by the
+    batched Pallas kernels (block_kernel='pallas'); here they run in the
+    Pallas interpreter, so this pins pallas == jnp on the same problem
     (small shapes — interpreter mode is slow)."""
 
     def test_pallas_equals_jnp(self):
@@ -192,7 +192,8 @@ class TestPallasBlockKernel:
                             dtype=jnp.float32)
         kw = dict(dtype=jnp.float32, tol=1e-4)
         res_j = SchurIPM(4, 2, block_kernel="jnp", **kw).solve(data)
-        res_p = SchurIPM(4, 2, block_kernel="pallas", **kw).solve(data)
+        res_p = SchurIPM(4, 2, block_kernel="pallas", interpret=True,
+                         **kw).solve(data)
         assert bool(res_j.converged) and bool(res_p.converged)
         np.testing.assert_allclose(np.asarray(res_p.x),
                                    np.asarray(res_j.x), atol=1e-4)
@@ -256,7 +257,7 @@ class TestTwoFloat:
 
     def test_auto_enables_two_float_on_f32_tight_tol(self):
         # the default tol 1e-8 must be reachable out of the box on a
-        # backend with no native f64 (i.e. every TPU)
+        # backend with no fast f64
         data = make_coupled(blocks=8, n=16, m_c=4, seed=3,
                             dtype=jnp.float32)
         ipm = SchurIPM(16, 4, dtype=jnp.float32, tol=1e-8, max_iter=40)
@@ -286,7 +287,8 @@ class TestTwoFloat:
         data = make_coupled(blocks=8, n=16, m_c=4, seed=7,
                             dtype=jnp.float32)
         ipm = SchurIPM(16, 4, dtype=jnp.float32, tol=1e-8, max_iter=40,
-                       two_float=True, refine=2, block_kernel="pallas")
+                       two_float=True, refine=2, block_kernel="pallas",
+                       interpret=True)
         res = ipm.solve(data)
         assert bool(res.converged)
 

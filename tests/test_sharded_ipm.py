@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import Bounds, InequalityHandling, Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.parallel.mesh import make_mesh
+from ipmzoo.formulations import Bounds, InequalityHandling, Settings
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.parallel.mesh import make_mesh
 
 BOX = Settings(inequalities=Bounds.NONE,
                inequality_handling=InequalityHandling.SLACKS)

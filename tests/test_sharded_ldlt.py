@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.ops.blocked_ldlt import ldlt_blocked
-from ipmzoo_tpu.ops.sharded_ldlt import (shard_kkt, sharded_ldlt,
+from ipmzoo.ops.blocked_ldlt import ldlt_blocked
+from ipmzoo.ops.sharded_ldlt import (shard_kkt, sharded_ldlt,
                                          sharded_ldlt_solve)
-from ipmzoo_tpu.parallel.mesh import make_mesh
+from ipmzoo.parallel.mesh import make_mesh
 
 
 def kkt(n, m, seed, scale=1.0):

@@ -3,7 +3,7 @@ remainder staged as ONE simplified expression in the affine-delta
 symbols, vs the default three-point numeric computation
 (taylor="staged").  The two are the same polynomial identity, so single
 steps must agree to float reassociation error across the formulation
-slice, and the fused SoA path must stay in lockstep with the XLA path.
+slice, and batched solves must stay in lockstep.
 """
 
 import jax
@@ -11,10 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.models.fused import FusedBatchedIPM
+from ipmzoo.models import CompiledIPM, QPData
 
 from test_formulation_coverage import data
 
@@ -68,22 +67,28 @@ def test_full_solve_equivalence():
                                rtol=0, atol=1e-10)
 
 
-def test_fused_lockstep_symbolic():
-    """SoA remainder evaluation stays in lockstep with the XLA path."""
-    from test_fused import make_batch
+def test_batched_lockstep_symbolic():
+    """Under vmap the symbolic remainder stays in lockstep with the
+    staged one."""
     B, n, m = 8, 6, 3
-    d = make_batch(B, n, m, seed=2)
-    ref = CompiledIPM(Settings(), n=n, m_ineq=m, dtype=jnp.float64,
-                      kernel="jnp", taylor="symbolic")
-    fused = FusedBatchedIPM(Settings(), n=n, m_ineq=m, bt=8,
-                            dtype=jnp.float64, taylor="symbolic")
-    r = ref.solve_batch(d)
-    f = fused.solve_fused(d)
-    assert bool(jnp.all(r.converged)) and bool(jnp.all(f["converged"]))
-    np.testing.assert_array_equal(np.asarray(r.iterations),
-                                  np.asarray(f["iterations"]).astype(int))
-    np.testing.assert_allclose(np.asarray(f["x"]), np.asarray(r.x),
-                               rtol=1e-12, atol=1e-12)
+    rng = np.random.default_rng(2)
+    M = rng.normal(size=(B, n, n))
+    d = QPData(
+        Q=jnp.asarray(np.einsum("bij,bkj->bik", M, M) / n + np.eye(n)),
+        c=jnp.asarray(rng.normal(size=(B, n))),
+        A_ineq=jnp.asarray(rng.normal(size=(B, m, n))),
+        l_A_ineq=jnp.asarray(-np.abs(rng.normal(size=(B, m))) - 1),
+        u_A_ineq=jnp.asarray(np.abs(rng.normal(size=(B, m))) + 1),
+        A_eq=jnp.zeros((B, 0, n)), b_eq=jnp.zeros((B, 0)),
+        l_x=jnp.full((B, n), -5.0), u_x=jnp.full((B, n), 5.0))
+    runs = [CompiledIPM(Settings(), n=n, m_ineq=m, dtype=jnp.float64,
+                        taylor=t).solve_batch(d)
+            for t in ("staged", "symbolic")]
+    assert all(bool(jnp.all(r.converged)) for r in runs)
+    np.testing.assert_array_equal(np.asarray(runs[0].iterations),
+                                  np.asarray(runs[1].iterations))
+    np.testing.assert_allclose(np.asarray(runs[1].x), np.asarray(runs[0].x),
+                               rtol=1e-10, atol=1e-10)
 
 
 def test_unknown_taylor_rejected():

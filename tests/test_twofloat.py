@@ -9,7 +9,7 @@ plain f32 refinement stalls."""
 import jax.numpy as jnp
 import numpy as np
 
-from ipmzoo_tpu.ops.twofloat import (comp_dot, comp_matvec, comp_norm2,
+from ipmzoo.ops.twofloat import (comp_dot, comp_matvec, comp_norm2,
                                      comp_residual, df_sum, two_prod,
                                      two_sum)
 
@@ -123,7 +123,7 @@ class TestMixedPrecisionRefinement:
         return K.astype(np.float32)
 
     def test_refinement_reaches_f32_floor(self):
-        from ipmzoo_tpu.ops.ldlt import ldlt, solve_ldlt
+        from ipmzoo.ops.ldlt import ldlt, solve_ldlt
         n, cond = 200, 1e5
         K = self._ill_conditioned(n, cond)
         rng = np.random.default_rng(1)
@@ -154,8 +154,8 @@ class TestMixedPrecisionRefinement:
         assert err_plain > 3 * err_hybrid
 
     def test_compiled_ipm_hybrid_refine(self):
-        from ipmzoo_tpu.formulations import Settings
-        from ipmzoo_tpu.models import CompiledIPM, QPData
+        from ipmzoo.formulations import Settings
+        from ipmzoo.models import CompiledIPM, QPData
         rng = np.random.default_rng(8)
         n, mi = 24, 8
         M = rng.normal(size=(n, n))

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ipmzoo_tpu.formulations import InequalityHandling, Settings
-from ipmzoo_tpu.models import CompiledIPM, QPData
-from ipmzoo_tpu.utils import (IterationTrace, Timer, load_metadata,
+from ipmzoo.formulations import InequalityHandling, Settings
+from ipmzoo.models import CompiledIPM, QPData
+from ipmzoo.utils import (IterationTrace, Timer, load_metadata,
                               load_state, save_state, solve_summary)
 
 

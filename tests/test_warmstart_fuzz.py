@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
+from ipmzoo.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
-from ipmzoo_tpu.models import CompiledIPM, QPData
+from ipmzoo.models import CompiledIPM, QPData
 
 
 def random_qp(n, m, seed, dtype=jnp.float64):

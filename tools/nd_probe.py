@@ -1,14 +1,13 @@
 #!/usr/bin/env python
 """Per-stage timing of the nested-dissection IPM step (BENCH_MODE=nd).
 
-Run from /root/repo on the TPU (bounded steps, never under a
-kill-on-timeout wrapper):
+Run from the repository root on the GPU:
 
     python tools/nd_probe.py [side] [leaf]
 
 Times, separately and slope-timed: KKT assembly, nd_factor, one
 nd_solve, the multi-rhs nd_solve_matrix the step uses, and the whole
-_step_impl, so the 18 ms/iter measured in round 3 can be attributed.
+_step_impl, so a step's time can be attributed.
 """
 
 import sys
@@ -18,10 +17,10 @@ sys.path.insert(0, ".")
 import jax
 import jax.numpy as jnp
 
-from ipmzoo_tpu.models import CompiledIPM
-from ipmzoo_tpu.models.families import grid_qp
-from ipmzoo_tpu.ops.ndiss import nd_factor, nd_solve, nd_solve_matrix
-from ipmzoo_tpu.utils.timing import measure_call, measure_chain
+from ipmzoo.models import CompiledIPM
+from ipmzoo.models.families import grid_qp
+from ipmzoo.ops.ndiss import nd_factor, nd_solve, nd_solve_matrix
+from ipmzoo.utils.timing import measure_call, measure_chain
 
 
 def main(side=64, leaf=64):

@@ -5,7 +5,7 @@ Where does the kernel='block' / 'blockg' / 'normal' iteration spend its
 time?  Times, separately and slope-timed (utils/timing.py): the batched
 Cholesky factor, single- and multi-rhs triangular solves, the explicit
 H^{-1}, and one full vmapped IPM step per kernel with and without
-Gondzio rounds.  Run on TPU from /root/repo:
+Gondzio rounds.  Run on the GPU from the repository root:
 
     python tools/normal_probe.py [n] [m] [B]
 """
@@ -27,7 +27,7 @@ def main():
     m = int(sys.argv[2]) if len(sys.argv) > 2 else 128
     B = int(sys.argv[3]) if len(sys.argv) > 3 else 8
 
-    from ipmzoo_tpu.utils.timing import measure_call, measure_chain
+    from ipmzoo.utils.timing import measure_call, measure_chain
     print(f"backend={jax.default_backend()} n={n} m={m} B={B}", flush=True)
 
     rng = np.random.default_rng(0)
@@ -68,8 +68,8 @@ def main():
           lambda Ai, Hi: jnp.einsum("bmi,bin->bmn", Ai, Hi), A, H)
 
     # full steps
-    from ipmzoo_tpu.formulations import Settings
-    from ipmzoo_tpu.models import CompiledIPM
+    from ipmzoo.formulations import Settings
+    from ipmzoo.models import CompiledIPM
     sys.path.insert(0, ".")
     from bench import make_batch
     data = make_batch(B, n, m, jnp.float32)
